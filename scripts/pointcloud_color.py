@@ -24,7 +24,7 @@ from xrsfm_tpu.utils import io_colmap as IOC  # noqa: E402
 
 def add_color(image_dir: str, bin_dir: str) -> int:
     """Returns the number of points that received a color."""
-    import cv2
+    from xrsfm_tpu.utils import image_io
 
     images = IOC.read_images_bin(os.path.join(bin_dir, "images.bin"))
     points = IOC.read_points3d_bin(os.path.join(bin_dir, "points3D.bin"))
@@ -35,10 +35,12 @@ def add_color(image_dir: str, bin_dir: str) -> int:
     cnt = np.zeros(max_id + 1, np.int64)
     for img in images.values():
         path = os.path.join(image_dir, img.name)
-        cv = cv2.imread(path, cv2.IMREAD_COLOR)
-        if cv is None:
+        if not os.path.exists(path):
             continue
-        cv = cv2.cvtColor(cv, cv2.COLOR_BGR2RGB)
+        cv = image_io.read_image(path)
+        if cv.ndim == 2:
+            cv = np.repeat(cv[:, :, None], 3, axis=2)
+        cv = cv[:, :, :3]
         h, w, _ = cv.shape
         ids = np.asarray(img.point3D_ids, np.int64)
         xy = np.asarray(img.xys, np.float64)

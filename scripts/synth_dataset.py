@@ -43,13 +43,10 @@ def look_at_R(center, target, up=(0.0, -1.0, 0.0)):
 
 def make_texture(rng, res=1024, smooth=3):
     """Random smooth texture (Gaussian-blurred noise)."""
-    t = rng.uniform(0, 1, (res, res)).astype(np.float32)
-    try:
-        import cv2
+    from scipy.ndimage import gaussian_filter
 
-        t = cv2.GaussianBlur(t, (0, 0), smooth)
-    except ImportError:
-        pass
+    t = rng.uniform(0, 1, (res, res)).astype(np.float32)
+    t = gaussian_filter(t, smooth, mode="mirror", truncate=4.0)
     t = (t - t.min()) / (t.max() - t.min() + 1e-9)
     return t
 
@@ -209,7 +206,7 @@ SCENES = {"arc": arc_scene, "loop": loop_scene, "corridor": corridor_scene}
 
 
 def main(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0, scene="arc"):
-    import cv2
+    from xrsfm_tpu.utils import image_io
 
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
@@ -223,7 +220,7 @@ def main(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0, scene="arc"):
     for i, (R, t) in enumerate(poses):
         img = render_scene(planes, R, t, f, cx, cy, w, h)
         name = f"frame{i:04d}.png"
-        cv2.imwrite(os.path.join(out_dir, "images", name), img)
+        image_io.write_image(os.path.join(out_dir, "images", name), img)
         names.append(name)
         # robust branch-free quaternion conversion (the naive
         # qw=sqrt(1+tr)/2 form divides by ~0 for 180-degree rotations);

@@ -1,5 +1,6 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from xrsfm_tpu.ops import matching as dmatch
 from xrsfm_tpu.feature import matching as fmatch
@@ -95,42 +96,113 @@ def test_match_and_verify_pipeline():
         assert frac_correct > 0.95, frac_correct
 
 
-def test_fused_pallas_matcher_matches_xla_path():
-    """The fused Pallas kernel (interpret mode on CPU) must agree with
-    the XLA fallback exactly: same accepted set, same counts, same
-    distances (both compute the identical raw uint8 dot products)."""
-    rng = np.random.default_rng(11)
-    N = 256  # pallas-eligible: multiples of 128, D=128
-    d1 = quantize_desc(random_descriptors(rng, N))
-    d2 = quantize_desc(random_descriptors(rng, N))
-    # overlap half the features so there are real matches
-    d2[: N // 2] = d1[: N // 2]
-    m1 = np.ones(N, bool)
-    m2 = np.ones(N, bool)
-    m1[-7:] = False  # exercise masking
-    m2[-3:] = False
-    assert dmatch._pallas_ok(N, N, 128)
+def _pair_with_ties(rng, n, m, n_valid, m_valid):
+    """One descriptor pair: 2/3 noisy true correspondences, exact
+    duplicates in d2 (ties), masked padding rows."""
+    base = random_descriptors(rng, n)
+    other = random_descriptors(rng, m)
+    k = 2 * min(n_valid, m_valid) // 3
+    noisy = np.abs(base[:k] + rng.normal(scale=0.03, size=(k, 128)))
+    other[:k] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    d1, d2 = quantize_desc(base), quantize_desc(other)
+    d2[k: k + 4] = d2[:4]  # ties: the lowest index must win
+    m1 = np.arange(n) < n_valid
+    m2 = np.arange(m) < m_valid
+    return d1, d2, m1, m2
 
-    mf, cf, df = dmatch._match_batch_fused(
+
+def _match_set(matches, count):
+    return {tuple(r) for r in np.asarray(matches)[: int(count)]}
+
+
+def test_fused_pallas_matcher_matches_xla_path():
+    """The fused kernel (interpret mode on the CPU) agrees exactly with
+    the int64 reference: the same raw statistics and the same accepted
+    set.  (It no longer compares with the XLA body, which keeps the
+    similarity in bf16 and may differ at bf16 ties.)"""
+    rng = np.random.default_rng(11)
+    d1, d2, m1, m2 = _pair_with_ties(rng, 256, 256, 249, 253)
+    stats = dmatch._stats_pallas(
         jnp.asarray(d1)[None], jnp.asarray(d2)[None],
-        jnp.asarray(m1)[None], jnp.asarray(m2)[None], 0.7, 0.8, 256,
+        jnp.asarray(m1)[None], jnp.asarray(m2)[None], interpret=True,
     )
-    mx, cx, dx = dmatch._match_descriptors_xla(
-        jnp.asarray(d1), jnp.asarray(d2),
-        jnp.asarray(m1), jnp.asarray(m2), 0.7, 0.8, 256,
+    cb, cs, bj, ca = (np.asarray(a[0]) for a in stats)
+    rb, rs, rj, rc = dmatch.match_stats_np(d1, d2, m1, m2)
+    q2 = dmatch._QUANT ** 2
+    np.testing.assert_array_equal((cb * q2)[m1], rb[m1])
+    np.testing.assert_array_equal((cs * q2)[m1], rs[m1])
+    np.testing.assert_array_equal(bj[m1], rj[m1])
+    np.testing.assert_array_equal(ca[m2], rc[m2])
+    mf, cf, _ = dmatch._match_batch_pallas(
+        d1[None], d2[None], m1[None], m2[None], 0.7, 0.8, 256,
+        interpret=True,
     )
-    assert int(cf[0]) == int(cx)
-    got = {tuple(r) for r in np.asarray(mf[0]) if r[0] >= 0}
-    exp = {tuple(r) for r in np.asarray(mx) if r[0] >= 0}
-    assert got == exp and len(got) == int(cx)
-    dmap_f = {tuple(r): float(v)
-              for r, v in zip(np.asarray(mf[0]), np.asarray(df[0]))
-              if r[0] >= 0}
-    dmap_x = {tuple(r): float(v)
-              for r, v in zip(np.asarray(mx), np.asarray(dx))
-              if r[0] >= 0}
-    for k in exp:
-        assert abs(dmap_f[k] - dmap_x[k]) < 1e-5
+    ref = {tuple(r) for r in dmatch.match_descriptors_np(d1, d2, m1, m2)}
+    assert len(ref) > 100
+    assert _match_set(mf[0], cf[0]) == ref
+
+
+@pytest.mark.parametrize("n,m", [(256, 256), (384, 640), (200, 130)])
+def test_matcher_kernel_matches_int64_reference(n, m):
+    """Padding to the tile inside the wrapper: any (N, M) gives the
+    reference's match set, with masks and ties, for every pair of a
+    batch."""
+    rng = np.random.default_rng(n + m)
+    pairs = [_pair_with_ties(rng, n, m, n - 5 * b, m - 3 * b)
+             for b in range(2)]
+    d1, d2, m1, m2 = (np.stack(a) for a in zip(*pairs))
+    mf, cf, df = dmatch._match_batch_pallas(
+        d1, d2, m1, m2, 0.7, 0.8, min(n, 256), interpret=True
+    )
+    for b in range(2):
+        ref = dmatch.match_descriptors_np(d1[b], d2[b], m1[b], m2[b])
+        assert len(ref) > 0.3 * min(n, m)
+        assert _match_set(mf[b], cf[b]) == {tuple(r) for r in ref}
+        # distances are the arccos of the exact cosine
+        sim = d1[b].astype(np.int64) @ d2[b].astype(np.int64).T
+        rows = np.asarray(mf[b])[: int(cf[b])]
+        exp = np.arccos(np.clip(
+            sim[rows[:, 0], rows[:, 1]] / dmatch._QUANT ** 2, -1, 1))
+        np.testing.assert_allclose(np.asarray(df[b])[: len(rows)], exp,
+                                   atol=1e-5)
+
+
+def test_matcher_choice_by_backend():
+    """One implementation per platform; an unknown backend is an error,
+    not a fallback."""
+    assert dmatch._matcher_for("gpu") is dmatch._match_batch_pallas
+    assert dmatch._matcher_for("cpu") is dmatch._match_batch_xla
+    with pytest.raises(NotImplementedError, match="rocm"):
+        dmatch._matcher_for("rocm")
+
+
+def test_xla_matcher_agrees_with_reference_off_ties():
+    """The XLA body (the CPU path) keeps the similarity in bf16; on a
+    pair without near-ties it gives the reference's set."""
+    rng = np.random.default_rng(5)
+    d1 = quantize_desc(random_descriptors(rng, 128))
+    d2 = d1[rng.permutation(128)]
+    m = np.ones(128, bool)
+    mx, cx, _ = dmatch._match_batch_xla(
+        d1[None], d2[None], m[None], m[None], 0.7, 0.8, 128
+    )
+    ref = {tuple(r) for r in dmatch.match_descriptors_np(d1, d2, m, m)}
+    assert len(ref) == 128
+    assert _match_set(mx[0], cx[0]) == ref
+
+
+@pytest.mark.gpu
+def test_matcher_kernel_on_gpu(gpu):
+    """The kernel as compiled for the card equals the int64 reference at
+    a production width (4,096 slots, masked padding, ties)."""
+    rng = np.random.default_rng(3)
+    pairs = [_pair_with_ties(rng, 4096, 4096, 4096 - 97 * b, 4096 - 31 * b)
+             for b in range(2)]
+    d1, d2, m1, m2 = (np.stack(a) for a in zip(*pairs))
+    mf, cf, _ = dmatch.match_descriptors_batch(d1, d2, m1, m2)
+    for b in range(2):
+        ref = dmatch.match_descriptors_np(d1[b], d2[b], m1[b], m2[b])
+        assert _match_set(mf[b], cf[b]) == {tuple(r) for r in ref}
 
 
 def _hamming_brute(d1, d2):

@@ -1,4 +1,4 @@
-"""Multi-process distributed runtime (the real DCN axis).
+"""Multi-process distributed runtime (the real inter-host axis).
 
 Exercises parallel/mesh.initialize_distributed + make_pod_mesh across
 actual process boundaries — 2 coordinated processes x 4 virtual CPU

@@ -1,4 +1,4 @@
-"""TPU-native ORB extractor (ops/orb.py) — reference USE_ORB path
+"""Batched ORB extractor (ops/orb.py) — reference USE_ORB path
 (feature_extraction.cc:21-56) + Hamming matching (OrbMatch)."""
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Tests for the TPU-native VLAD image retrieval (feature/retrieval.py).
+"""Tests for the VLAD image retrieval (feature/retrieval.py).
 
 The reference has no retrieval implementation to compare against (it
 consumes an externally-produced retrieval.txt, run_matching.cc:193-207);

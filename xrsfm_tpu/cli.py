@@ -18,7 +18,9 @@ import argparse
 import sys
 
 
-def main(argv=None):
+def main(argv=None, stats=None):
+    """stats (optional dict) is handed to run_matching, which records its
+    stage times there."""
     from . import enable_compilation_cache
 
     enable_compilation_cache()
@@ -106,7 +108,7 @@ def main(argv=None):
     from .utils.profiling import maybe_trace
 
     with maybe_trace(getattr(args, "profile_dir", None)):
-        _dispatch(args)
+        _dispatch(args, stats)
 
 
 def _has_missing(args) -> bool:
@@ -116,12 +118,12 @@ def _has_missing(args) -> bool:
     )
 
 
-def _dispatch(args):
+def _dispatch(args, stats=None):
     if args.cmd == "run_matching":
         from .pipelines import run_matching as M
 
         M.main(args.images_dir, args.retrieval_path, args.matching_type,
-               args.output_dir, n_devices=args.n_devices)
+               args.output_dir, n_devices=args.n_devices, stats=stats)
     elif args.cmd == "retrieve":
         from .pipelines import retrieve as RV
 

@@ -1,12 +1,12 @@
-"""TPU-native image retrieval: VLAD over RootSIFT descriptors.
+"""Image retrieval: VLAD over RootSIFT descriptors.
 
 The reference does NOT ship a retrieval method — its `run_matching` consumes
 a `retrieval.txt` produced by an external image-retrieval tool
 (reference: src/run_matching.cc:193-207 loads it via LoadRetrievalRank,
 src/utility/io_feature.hpp:180-212; docs/en/tutorial.md tells users to
 bring their own ranked list).  Here retrieval is a first-class pipeline
-stage so the framework is self-contained, and the formulation is chosen
-for the MXU:
+stage so the framework is self-contained, and the formulation is built
+from matrix products:
 
   * vocabulary: k-means over a descriptor sample, where the assignment
     step is one [N,128]x[128,K] matmul + row argmax and the update step is
@@ -200,7 +200,7 @@ def encode_vlad(
 
 @functools.partial(jax.jit, static_argnames=("topk",))
 def _topk_sim(q, db, qids, topk: int):
-    sim = q @ db.T  # [Bq, F] — the MXU does the whole dataset at once
+    sim = q @ db.T  # [Bq, F] — one matrix product over the whole dataset
     F = db.shape[0]
     col = jnp.arange(F)[None, :]
     sim = jnp.where(col == qids[:, None], -jnp.inf, sim)  # mask self

@@ -33,8 +33,14 @@ def canonical_corners(tag_length: float) -> np.ndarray:
 
 def detect_tags(image) -> Dict[int, np.ndarray]:
     """Detect AprilTag 36h11 markers.  Returns tag_id -> [4, 2] pixel
-    corners (reference: tag_extract, tag_extract.hpp:33-57)."""
-    import cv2
+    corners (reference: tag_extract, tag_extract.hpp:33-57).  Needs
+    OpenCV's aruco module (cv2), which the rest of the pipeline does not."""
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError(
+            "AprilTag detection (estimate_scale) needs OpenCV (cv2), "
+            "which is not installed") from None
 
     img = np.asarray(image)
     if img.ndim == 3:

@@ -1,15 +1,15 @@
 """Batched two-view epipolar geometry: F / E estimation and decomposition.
 
-TPU-native equivalents of the reference's estimators:
+Batched equivalents of the reference's estimators:
   * 7-point / 8-point fundamental matrix
     (reference: src/geometry/colmap/estimators/fundamental_matrix.cc:48-199)
   * Sampson error (reference: essential.cc:283-290, fundamental_matrix.cc:202-230)
   * essential matrix estimation + decomposition + cheirality
     (reference: src/geometry/essential.cc:221-487)
 
-Design notes (TPU-first):
-  * nullspaces come from eigh(A^T A) — symmetric eig is TPU-supported,
-    general SVD of tall skinny matrices lowers poorly;
+Design notes:
+  * nullspaces come from eigh(A^T A) — batched symmetric eig lowers
+    well on accelerators, general SVD of tall skinny matrices poorly;
   * the 7-point cubic det constraint is recovered branch-free by evaluating
     det(a*F1 + (1-a)*F2) at 4 points and inverting a fixed Vandermonde
     (exact for a cubic), then rooted with the batched Durand-Kerner
@@ -40,8 +40,11 @@ def sampson_error(F: jax.Array, x1: jax.Array, x2: jax.Array) -> jax.Array:
     (x2^T F x1 convention: x1 in image 1, x2 in image 2)."""
     p1 = _hom(x1)
     p2 = _hom(x2)
-    Fx1 = jnp.einsum("...ij,...nj->...ni", F, p1)
-    Ftx2 = jnp.einsum("...ji,...nj->...ni", F, p2)
+    # full f32: pixel-scale coordinates lose ~0.5 px in a TF32 product,
+    # enough to move inliers across the RANSAC threshold
+    hi = jax.lax.Precision.HIGHEST
+    Fx1 = jnp.einsum("...ij,...nj->...ni", F, p1, precision=hi)
+    Ftx2 = jnp.einsum("...ji,...nj->...ni", F, p2, precision=hi)
     num = jnp.sum(p2 * Fx1, axis=-1) ** 2
     den = (
         Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2

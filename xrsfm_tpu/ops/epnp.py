@@ -1,6 +1,6 @@
 """Closed-form N-point absolute-pose solvers: EPnP and IPPE.
 
-TPU-native equivalents of the reference's EPNPEstimator — the LO-RANSAC
+Batched equivalents of the reference's EPNPEstimator — the LO-RANSAC
 local refiner for registration (reference: absolute_pose.cc:188-621).
 Two solvers cover the two geometric regimes:
 

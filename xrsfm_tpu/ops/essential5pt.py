@@ -1,9 +1,9 @@
-"""Nister 5-point essential matrix minimal solver, TPU-lowerable.
+"""Nister 5-point essential matrix minimal solver, accelerator-lowerable.
 
 (reference: solve_essential_5pt, src/geometry/essential.cc:105-304 — the
 reference builds the 10x20 Groebner system with a custom Polynomial class
-and eigendecomposes a 10x10 action matrix.  TPU has no nonsymmetric eig,
-so this implementation follows Nister's original elimination instead:
+and eigendecomposes a 10x10 action matrix.  XLA has no nonsymmetric
+eig on accelerators, so this implementation follows Nister's original elimination instead:
 reduce the 10x20 constraint system, form the 3x3 polynomial matrix B(z)
 whose determinant is the degree-10 polynomial, root it with the batched
 Durand-Kerner iteration (ops/poly.py), and back-substitute (x, y) per

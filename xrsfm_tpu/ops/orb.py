@@ -1,6 +1,6 @@
-"""Batched ORB feature extraction on TPU (XLA ops, no OpenCV).
+"""Batched ORB feature extraction (XLA ops, no OpenCV).
 
-TPU-native equivalent of the reference's USE_ORB path (reference:
+Batched equivalent of the reference's USE_ORB path (reference:
 src/feature/feature_extraction.cc:21-56 — ORB_SLAM2 OrbExtractor with
 2048 features, 8 pyramid levels, scale 1.2, FAST thresholds 20/7; the
 Hamming matcher counterpart is ops/matching.match_descriptors_hamming,

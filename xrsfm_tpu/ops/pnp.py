@@ -1,6 +1,6 @@
 """Batched absolute-pose estimation (P3P + pose refinement).
 
-TPU-native equivalents of the reference's registration kernels:
+Batched equivalents of the reference's registration kernels:
   * P3P minimal solver (reference: P3PEstimator, Gao's method,
     src/geometry/colmap/estimators/absolute_pose.cc:50-186) — implemented
     here as Grunert's distance quartic rooted with the batched

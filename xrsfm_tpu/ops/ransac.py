@@ -1,10 +1,10 @@
 """Vectorized RANSAC / LO-RANSAC harness.
 
-TPU-native re-design of the reference's sequential adaptive RANSAC
+Batched re-design of the reference's sequential adaptive RANSAC
 (reference: src/geometry/colmap/optim/ransac.h:74-269 and loransac.h:51-243).
 Instead of an adaptive trial loop with early exit, a fixed batch of B
 hypotheses is sampled at once, every model is scored against every point as
-one [B*M, N] residual matrix (VPU-friendly), and the argmax-support model
+one [B*M, N] residual matrix, and the argmax-support model
 wins.  Support follows COLMAP's MSAC-style measurer: maximize inlier count,
 tie-broken by minimal truncated residual sum
 (src/geometry/colmap/optim/support_measurement.cc:44-78).

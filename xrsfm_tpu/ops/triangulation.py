@@ -1,12 +1,12 @@
 """Batched DLT triangulation (2-view and N-view).
 
-TPU-native equivalent of the reference's SVD triangulation
+Batched equivalent of the reference's SVD triangulation
 (reference: src/geometry/triangluate_svd.cc:8-73 and
 src/geometry/colmap/base/triangulation.cc:40-160).  The homogeneous DLT
 nullspace is found with eigh(A^T A) — symmetric eigendecomposition is
-supported and fast on TPU, unlike general SVD of tall matrices — and N-view
-problems use a mask so a fixed-width observation block triangulates variable
-track lengths.
+batched and fast on accelerators, unlike general SVD of tall matrices —
+and N-view problems use a mask so a fixed-width observation block
+triangulates variable track lengths.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ time, ba_solver.cc:147-328):
 Caller must retriangulate all tracks and re-run GBA afterwards (the
 same contract as rotation_averaging_polish).
 
-TPU-first: measurement is one batched dispatch; both solvers are single
+Device-first: measurement is one batched dispatch; both solvers are single
 jitted programs (fori_loop IRLS rounds, Jacobi-preconditioned CG on
 graph Laplacians via scatter-adds).
 """

@@ -18,7 +18,7 @@ translation t_i, and log-scale log s_i, 7 DoF per keyframe, with:
   * a scale-ratio residual log s_i - log s_j vs. the measured ratio and
     a weak scale regularizer.
 
-TPU-native design: variables are one flat [N, 7] array; every edge
+Design: variables are one flat [N, 7] array; every edge
 residual is evaluated with one vmap over the edge table and
 differentiated with jacfwd; the damped normal equations (7N small for
 keyframe graphs) are solved with dense Cholesky on device inside a

@@ -14,7 +14,7 @@ Chatterjee-Govindaru-style) and rewrites the frame rotations about
 their camera centers.  Retriangulation + GBA afterwards converge in the
 correct basin.
 
-TPU-first design: edge measurement is ONE batched dispatch (vmapped
+Design: edge measurement is ONE batched dispatch (vmapped
 LO-RANSAC + pose recovery over padded [P, M, 2] match tables), and the
 solver is a single jitted program — fixed edge count, lax.fori_loop
 IRLS rounds, Jacobi-preconditioned CG on the 3N x 3N graph Laplacian

@@ -2,7 +2,7 @@
 
 The reference has no concurrency sanitizers (SURVEY.md §5.2); its only
 shared-memory parallelism is an OpenMP loop over disjoint outputs.  The
-TPU-native replacement for "did parallel execution change the result?"
+The device-side replacement for "did parallel execution change the result?"
 is a deterministic checksum of (possibly sharded) device state:
 
   * arrays are bit-cast to uint32, weighted by a position-dependent

@@ -2,7 +2,7 @@
 
 The reference has no distributed computation at all (SURVEY.md §2.9: single
 process, OpenMP pair loop, 8 Ceres threads).  This module *introduces* the
-TPU-native scale-out called for by BASELINE.json's north star:
+multi-device scale-out called for by BASELINE.json's north star:
 
   * the COO observation table is sharded over the mesh's "obs" axis —
     residual/Jacobian evaluation is embarrassingly parallel;
@@ -13,7 +13,7 @@ TPU-native scale-out called for by BASELINE.json's north star:
     (the reduce_fn hook in _build_normal_blocks_ell / _schur_solve_ell);
   * cameras/points stay replicated (tiny: 6C + 3P floats); the reduced
     camera system is solved by replicated PCG whose matvec psums local
-    per-shard contributions over ICI.
+    per-shard contributions across the mesh.
 
 This mirrors the single-chip solver in optim/ba.py step for step, so the
 two paths are testable against each other on a CPU mesh
@@ -120,8 +120,8 @@ def make_distributed_lm_step(mesh: Mesh, axis="obs",
     `axis` may be a single mesh axis name or a tuple of names — passing
     ("dcn", "ici") from make_pod_mesh shards the observation table over
     the full pod and reduces the camera/point blocks with one psum over
-    both axes; XLA lowers that to an in-host ICI reduce followed by the
-    (much smaller) cross-host DCN stage (SURVEY.md §5.8).
+    both axes; XLA lowers that to an intra-host reduce followed by the
+    (much smaller) inter-host stage (SURVEY.md §5.8).
 
     deterministic=True (default) replaces every cross-shard psum with
     all_gather + a fixed-order local sum over the gathered shard axis,

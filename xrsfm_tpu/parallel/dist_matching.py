@@ -3,21 +3,46 @@
 The matching stage is embarrassingly parallel over image pairs (the
 reference runs pairs serially through one shared SiftMatchGPU instance,
 feature_processing.cc:222-308).  Here a batch of pairs is laid out
-[B, K, 128] and sharded over the mesh's "pairs" axis; XLA partitions the
-vmapped matmul+top-k automatically, so B pairs match in the time of
-B/n_devices.
+[B, K, 128] and split over the mesh's pair axis with shard_map: each
+device runs the single-device matcher (ops/matching) on its B/n_devices
+pairs, so B pairs match in the time of B/n_devices.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import matching as dmatch
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_matcher(mesh: Mesh, axis: str, max_matches: int):
+    spec = P(axis)
+    return jax.jit(jax.shard_map(
+        lambda d1, d2, m1, m2, dist_th, ratio_th:
+            dmatch.match_descriptors_batch(d1, d2, m1, m2, dist_th,
+                                           ratio_th, max_matches),
+        mesh=mesh,
+        in_specs=(spec, spec, spec, spec, P(), P()),
+        out_specs=(spec, spec, spec),
+        check_vma=False,
+    ))
+
+
+def match_batch_sharded(mesh: Mesh, d1, d2, mask1, mask2, dist_th=0.7,
+                        ratio_th=0.8, max_matches: int = 4096, axis=None):
+    """match_descriptors_batch with the pair axis (B, a multiple of the
+    axis size) split over `axis` (default: the mesh's first axis)."""
+    axis = axis or mesh.axis_names[0]
+    return _sharded_matcher(mesh, axis, max_matches)(
+        d1, d2, mask1, mask2, jnp.float32(dist_th), jnp.float32(ratio_th)
+    )
 
 
 def match_pairs_sharded(
@@ -31,25 +56,13 @@ def match_pairs_sharded(
     axis: str = "pairs",
 ):
     """Match all pairs, sharded over the mesh.  Returns per-pair
-    (matches [max_matches, 2], count) as numpy arrays."""
+    (matches [max_matches, 2], count, distances) as numpy arrays."""
     n_dev = mesh.shape[axis]
     B = len(pair_ids)
     pad = (-B) % n_dev
     ids = np.asarray(list(pair_ids) + [pair_ids[0]] * pad, np.int64)
-
-    d1 = descs[ids[:, 0]]
-    d2 = descs[ids[:, 1]]
-    m1 = masks[ids[:, 0]]
-    m2 = masks[ids[:, 1]]
-    sh = NamedSharding(mesh, P(axis))
-    d1 = jax.device_put(jnp.asarray(d1), sh)
-    d2 = jax.device_put(jnp.asarray(d2), sh)
-    m1 = jax.device_put(jnp.asarray(m1), sh)
-    m2 = jax.device_put(jnp.asarray(m2), sh)
-    matches, counts, dists = dmatch.match_descriptors_batch(
-        d1, d2, m1, m2, dist_th, ratio_th, max_matches
+    out = match_batch_sharded(
+        mesh, descs[ids[:, 0]], descs[ids[:, 1]], masks[ids[:, 0]],
+        masks[ids[:, 1]], dist_th, ratio_th, max_matches, axis,
     )
-    matches = np.asarray(matches)[:B]
-    counts = np.asarray(counts)[:B]
-    dists = np.asarray(dists)[:B]
-    return matches, counts, dists
+    return tuple(np.asarray(a)[:B] for a in jax.device_get(out))

@@ -1,13 +1,14 @@
 """Device mesh and multi-host runtime setup.
 
 The reference is strictly single-process (SURVEY.md §2.9); this module
-provides the scale-out runtime the TPU-native design calls for:
+provides the scale-out runtime:
 
-  * single host: a 1-D "obs"/"pairs" mesh over local chips;
-  * multi-host (pod slice): jax.distributed.initialize + a 2-D
-    (dcn, ici) mesh — hosts on the slow axis, per-host chips on the fast
-    axis.  Shardings should keep collectives (psum of BA blocks) on the
-    ici axis and only stage-boundary scatter/gather on dcn.
+  * single host: a 1-D "obs"/"pairs" mesh over the local devices;
+  * multi-host: jax.distributed.initialize + a 2-D (dcn, ici) mesh —
+    hosts on the slow inter-host axis ("dcn"), each host's devices on the
+    fast intra-host axis ("ici").  Shardings should keep collectives
+    (psum of BA blocks) on the intra-host axis and only stage-boundary
+    scatter/gather on the inter-host one.
 
 Multi-host cannot be exercised in this single-host environment; the mesh
 construction itself is covered by the CPU-device tests.
@@ -27,8 +28,9 @@ def initialize_distributed(
 ):
     """Initialize the multi-host runtime (no-op when single-process).
 
-    Mirrors jax.distributed.initialize's auto-detection: on TPU pods the
-    arguments are discovered from the environment.
+    Mirrors jax.distributed.initialize: where a cluster environment is
+    detected the arguments are discovered from it; otherwise pass the
+    coordinator address, process count and process id.
     """
     import jax
 
@@ -50,10 +52,10 @@ def make_mesh(axis: str = "obs"):
 
 
 def make_pod_mesh(ici_axis: str = "ici", dcn_axis: str = "dcn"):
-    """2-D (hosts x per-host chips) mesh for pod slices.
+    """2-D (hosts x per-host devices) mesh.
 
-    BA block psums ride the ici axis; dcn only sees stage-boundary
-    traffic (SURVEY.md §5.8)."""
+    BA block psums ride the intra-host axis; the inter-host axis only
+    sees stage-boundary traffic (SURVEY.md §5.8)."""
     import jax
     from jax.sharding import Mesh
 

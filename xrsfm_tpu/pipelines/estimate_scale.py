@@ -21,7 +21,7 @@ from ..feature import tags as T
 
 
 def main(images_dir: str, model_dir: str, tag_length: float = 0.113):
-    import cv2
+    from ..utils import image_io
 
     t0 = time.time()
     m = colmap_to_map(model_dir)
@@ -29,9 +29,9 @@ def main(images_dir: str, model_dir: str, tag_length: float = 0.113):
     n_det = 0
     for fid, name in enumerate(m.names):
         path = os.path.join(images_dir, name)
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
+        if not os.path.exists(path):
             continue
+        img = image_io.read_gray(path)
         tags = T.detect_tags(img)
         if tags:
             detections[fid] = tags

@@ -3,7 +3,7 @@
 New capability (the reference has no retrieval binary — its run_matching
 consumes a retrieval.txt from an external tool, src/run_matching.cc:193-207).
 Extracts (or loads cached) SIFT features, trains a VLAD vocabulary, encodes
-every image, ranks by one MXU similarity matmul, and writes the ranked-pair
+every image, ranks by one similarity matmul, and writes the ranked-pair
 text file in the exact format the reference's LoadRetrievalRank parses
 (src/utility/io_feature.hpp:180-212) — so the output also drops into the
 reference's own pipeline.

@@ -1,6 +1,6 @@
 """Batched COLMAP-compatible camera models.
 
-TPU-native re-design of the reference's camera model layer
+Re-design of the reference's camera model layer
 (reference: src/base/camera_model.hpp:93-286, src/base/camera.hpp:10-108).
 
 The reference dispatches over 5 intrinsic models with an X-macro
@@ -153,34 +153,37 @@ def distort_jacobian(params: jax.Array, uv: jax.Array) -> jax.Array:
     return J.reshape(J.shape[:-1] + (2, 2))
 
 
+def _undistort_step(xp, params, uv, x):
+    """One Newton step of `undistort`, for xp in (jnp, np)."""
+    k1, k2, p1, p2 = (params[..., 4], params[..., 5], params[..., 6], params[..., 7])
+    u, v = x[..., 0], x[..., 1]
+    u2, v2 = u * u, v * v
+    r2 = u2 + v2
+    r4 = r2 * r2
+    radial = k1 * r2 + k2 * r4
+    fu = u + u * radial + 2 * p1 * u * v + p2 * (r2 + 2 * u2) - uv[..., 0]
+    fv = v + v * radial + 2 * p2 * u * v + p1 * (r2 + 2 * v2) - uv[..., 1]
+    # analytic Jacobian of the distortion map
+    drad_du = 2 * u * (k1 + 2 * k2 * r2)
+    drad_dv = 2 * v * (k1 + 2 * k2 * r2)
+    j00 = 1 + radial + u * drad_du + 2 * p1 * v + 6 * p2 * u
+    j01 = u * drad_dv + 2 * p1 * u + 2 * p2 * v
+    j10 = v * drad_du + 2 * p2 * v + 2 * p1 * u
+    j11 = 1 + radial + v * drad_dv + 2 * p2 * u + 6 * p1 * v
+    det = j00 * j11 - j01 * j10
+    det = xp.where(xp.abs(det) < 1e-12, 1.0, det)
+    du_ = (j11 * fu - j01 * fv) / det
+    dv_ = (j00 * fv - j10 * fu) / det
+    return xp.stack([x[..., 0] - du_, x[..., 1] - dv_], axis=-1)
+
+
 def undistort(params: jax.Array, uv: jax.Array, iters: int = 10) -> jax.Array:
     """Invert `distort`: find x with distort(x) = uv.  Fixed-iteration Newton
     with analytic 2x2 Jacobian (reference: IterativeUndistortion,
     src/base/camera_model.hpp:8-55)."""
-    k1, k2, p1, p2 = (params[..., 4], params[..., 5], params[..., 6], params[..., 7])
-
-    def step(_, x):
-        u, v = x[..., 0], x[..., 1]
-        u2, v2 = u * u, v * v
-        r2 = u2 + v2
-        r4 = r2 * r2
-        radial = k1 * r2 + k2 * r4
-        fu = u + u * radial + 2 * p1 * u * v + p2 * (r2 + 2 * u2) - uv[..., 0]
-        fv = v + v * radial + 2 * p2 * u * v + p1 * (r2 + 2 * v2) - uv[..., 1]
-        # analytic Jacobian of the distortion map
-        drad_du = 2 * u * (k1 + 2 * k2 * r2)
-        drad_dv = 2 * v * (k1 + 2 * k2 * r2)
-        j00 = 1 + radial + u * drad_du + 2 * p1 * v + 6 * p2 * u
-        j01 = u * drad_dv + 2 * p1 * u + 2 * p2 * v
-        j10 = v * drad_du + 2 * p2 * v + 2 * p1 * u
-        j11 = 1 + radial + v * drad_dv + 2 * p2 * u + 6 * p1 * v
-        det = j00 * j11 - j01 * j10
-        det = jnp.where(jnp.abs(det) < 1e-12, 1.0, det)
-        du_ = (j11 * fu - j01 * fv) / det
-        dv_ = (j00 * fv - j10 * fu) / det
-        return jnp.stack([x[..., 0] - du_, x[..., 1] - dv_], axis=-1)
-
-    return jax.lax.fori_loop(0, iters, step, uv)
+    return jax.lax.fori_loop(
+        0, iters, lambda _, x: _undistort_step(jnp, params, uv, x), uv
+    )
 
 
 def normalized_to_image(params: jax.Array, uv: jax.Array) -> jax.Array:
@@ -197,6 +200,19 @@ def image_to_normalized(params: jax.Array, xy: jax.Array, iters: int = 10) -> ja
     fx, fy, cx, cy = (params[..., 0], params[..., 1], params[..., 2], params[..., 3])
     uv = jnp.stack([(xy[..., 0] - cx) / fx, (xy[..., 1] - cy) / fy], axis=-1)
     return undistort(params, uv, iters=iters)
+
+
+def image_to_normalized_np(params, xy, iters: int = 10) -> np.ndarray:
+    """Host (numpy float32) twin of `image_to_normalized`, for map
+    bookkeeping that should not dispatch device work per frame."""
+    params = np.asarray(params, np.float32)
+    xy = np.asarray(xy, np.float32)
+    uv = np.stack([(xy[..., 0] - params[..., 2]) / params[..., 0],
+                   (xy[..., 1] - params[..., 3]) / params[..., 1]], axis=-1)
+    x = uv
+    for _ in range(iters):
+        x = _undistort_step(np, params, uv, x).astype(np.float32)
+    return x
 
 
 def project(params: jax.Array, q: jax.Array, t: jax.Array, xyz: jax.Array):

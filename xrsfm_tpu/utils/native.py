@@ -43,15 +43,20 @@ def get_native():
             sys.path.insert(0, _NATIVE_DIR)
         if _try_import():
             return _NATIVE
-    # build on the fly
+    # build on the fly into a private directory, then move the library
+    # into native/ atomically (concurrent processes may build at once)
     try:
+        tmp = os.path.join(_NATIVE_DIR, "build", f"pid{os.getpid()}")
         subprocess.run(
-            [sys.executable, "setup.py", "build_ext", "--inplace"],
+            [sys.executable, "setup.py", "build_ext", "-b", tmp,
+             "-t", os.path.join(tmp, "obj")],
             cwd=_NATIVE_DIR,
             check=True,
             capture_output=True,
             timeout=120,
         )
+        for lib in glob.glob(os.path.join(tmp, "xrsfm_native*.so")):
+            os.replace(lib, os.path.join(_NATIVE_DIR, os.path.basename(lib)))
         if _NATIVE_DIR not in sys.path:
             sys.path.insert(0, _NATIVE_DIR)
         _try_import()

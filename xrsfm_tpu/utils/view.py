@@ -20,8 +20,11 @@ _GRAY = (80, 80, 80)
 
 
 def _cv2():
-    import cv2
-
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError("the drawing helpers in utils/view need OpenCV "
+                          "(cv2), which is not installed") from None
     return cv2
 
 
